@@ -20,8 +20,8 @@ kernels:
 	python kernel/bench_kernels.py
 
 native:
-	python -c "from dgl_tpu.csrc import native; assert native.available(); print('native ok')"
+	python -c "from dgl_jax.csrc import native; assert native.available(); print('native ok')"
 
 clean:
-	rm -rf dgl_tpu/csrc/_build .pytest_cache
+	rm -rf dgl_jax/csrc/_build .pytest_cache
 	find . -name __pycache__ -type d -exec rm -rf {} +

@@ -27,17 +27,17 @@ import optax
 sys.path.insert(0, __file__.rsplit("/benchmarks/", 1)[0] + "/benchmarks")
 from common import load_node_dataset, print_data_stats  # noqa: E402
 
-import dgl_tpu  # noqa: E402
-from dgl_tpu.data.loaders import data_root  # noqa: E402
-from dgl_tpu.models import GraphSAGE  # noqa: E402
-from dgl_tpu.nn import PairMLPPredictor  # noqa: E402
-from dgl_tpu.ops import u_dot_v  # noqa: E402
-from dgl_tpu.sampling.cluster import ClusterIter  # noqa: E402
-from dgl_tpu.train import Logger  # noqa: E402
+import dgl_jax  # noqa: E402
+from dgl_jax.data.loaders import data_root  # noqa: E402
+from dgl_jax.models import GraphSAGE  # noqa: E402
+from dgl_jax.nn import PairMLPPredictor  # noqa: E402
+from dgl_jax.ops import u_dot_v  # noqa: E402
+from dgl_jax.sampling.cluster import ClusterIter  # noqa: E402
+from dgl_jax.train import Logger  # noqa: E402
 
 
 def main():
-    p = argparse.ArgumentParser(description="Cluster link prediction (dgl_tpu)")
+    p = argparse.ArgumentParser(description="Cluster link prediction (dgl_jax)")
     p.add_argument("--dataset", type=str, default="ogbn-arxiv",
                    help="any node dataset; 5%% of edges held out as val/test links")
     p.add_argument("--n-epochs", type=int, default=10)
@@ -79,7 +79,7 @@ def main():
         seed=args.seed, cache_dir=data_root(),
         with_negatives=True,
     )
-    g_full = dgl_tpu.from_edges(src_tr, dst_tr, data.num_nodes)
+    g_full = dgl_jax.from_edges(src_tr, dst_tr, data.num_nodes)
     x_full = jnp.asarray(data.features)
 
     model = GraphSAGE(

@@ -27,20 +27,20 @@ from common import (  # noqa: E402
     Logger,
 )
 
-import dgl_tpu  # noqa: E402
-from dgl_tpu.models import RGCN  # noqa: E402
+import dgl_jax  # noqa: E402
+from dgl_jax.models import RGCN  # noqa: E402
 
 
 def run_sharded(args, data):
     """Edge-partitioned full-graph RGCN: relation-contracted boundary-halo
-    exchange (``dgl_tpu.parallel.halo_rgcn_boundary``; pattern of
+    exchange (``dgl_jax.parallel.halo_rgcn_boundary``; pattern of
     ``main_sage.py:run_sharded``). Eval = mean ROC-AUC over masked rows."""
     import optax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from common import mean_multilabel_auc
-    from dgl_tpu.graph.partition import partition_assignment
-    from dgl_tpu.parallel import (
+    from dgl_jax.graph.partition import partition_assignment
+    from dgl_jax.parallel import (
         device_mesh,
         halo_rgcn_apply,
         halo_rgcn_init,
@@ -120,7 +120,7 @@ def run_sharded(args, data):
 
 
 def main():
-    parser = argparse.ArgumentParser(description="RGCN ogbn-proteins (dgl_tpu)")
+    parser = argparse.ArgumentParser(description="RGCN ogbn-proteins (dgl_jax)")
     parser.add_argument("--device", type=int, default=0)
     parser.add_argument("--log_steps", type=int, default=1)
     parser.add_argument("--lr", type=float, default=0.01)
@@ -137,10 +137,10 @@ def main():
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--scale", type=float, default=1.0,
                         help="shrink factor for synthetic fallback data (smoke tests)")
-    parser.add_argument("--lane-kernel", action="store_true",
-                        help="locality-reorder + lane plans; aggregation runs "
-                             "as weighted lane passes (edge weights are "
-                             "dataset constants on this path)")
+    parser.add_argument("--reorder", action="store_true",
+                        help="relabel nodes by a locality partition (hub "
+                             "extraction + multilevel blocks) before building "
+                             "the graph")
     parser.add_argument("--shard", type=int, default=0,
                         help="edge-partitioned full-graph training over a "
                              "device mesh: relation-contracted boundary-halo "
@@ -155,24 +155,11 @@ def main():
         run_sharded(args, data)
         return
 
-    lane_weights = None
-    ck = f"proteins_s{args.scale}_rgcn"
-    # NOTE: the previous lane path relabeled edge endpoints without
-    # permuting labels/masks (accuracy garbage under --lane-kernel);
-    # prepare_full_graph permutes every node-indexed array by the order.
+    # prepare_full_graph permutes every node-indexed array by the order
     g, _, labels, mask_arrays, _ = prepare_full_graph(
         "ogbn-proteins", data, scale=args.scale, seed=0,
-        reorder=args.lane_kernel, order_key=ck,
+        reorder=args.reorder, order_key=f"proteins_s{args.scale}_rgcn",
     )
-    if args.lane_kernel:
-        from dgl_tpu.data.loaders import data_root
-        from dgl_tpu.kernels import attach_lane_plans
-        from dgl_tpu.ops.rel_lane import RelLaneWeights
-
-        g = attach_lane_plans(g, cache_dir=data_root(), cache_key=ck)
-        if g.lane is not None:
-            ew = np.asarray(g.permute_edata(jnp.asarray(data.edge_feat)))
-            lane_weights = RelLaneWeights.build(g, ew)
     node_feats = jnp.ones((data.num_nodes, 1), dtype=jnp.float32)
     edge_weights = g.permute_edata(jnp.asarray(data.edge_feat))  # (E_pad, 8)
     y = jnp.asarray(labels, dtype=jnp.float32)  # (N, 112) multilabel
@@ -189,12 +176,11 @@ def main():
     tx = optax.adam(args.lr)
 
     @jax.jit
-    def train_step(params, opt_state, key, g, node_feats, edge_weights, y, masks, lw):
+    def train_step(params, opt_state, key, g, node_feats, edge_weights, y, masks):
         def loss_fn(p):
             out = model.apply(
                 {"params": p}, g, node_feats, edge_weights,
                 deterministic=False, rngs={"dropout": key},
-                lane_weights=lw,
             )
             return masked_bce(out, y, masks["train"])
         loss, grads = jax.value_and_grad(loss_fn)(params)
@@ -202,36 +188,32 @@ def main():
         return optax.apply_updates(params, updates), opt_state, loss
 
     @jax.jit
-    def forward(params, g, node_feats, edge_weights, lw):
-        return model.apply({"params": params}, g, node_feats, edge_weights,
-                           lane_weights=lw)
+    def forward(params, g, node_feats, edge_weights):
+        return model.apply({"params": params}, g, node_feats, edge_weights)
 
     logger = Logger(args.runs, scale=100.0)
     dur = []
     for run in range(args.runs):
         key = jax.random.PRNGKey(args.seed * 1000 + run)
-        params = jax.jit(model.init, static_argnames=())(
-            key, g, node_feats, edge_weights, lane_weights=lane_weights
-        )["params"]
+        params = jax.jit(model.init)(key, g, node_feats, edge_weights)["params"]
         opt_state = tx.init(params)
         for epoch in range(args.epochs):
             key, sub = jax.random.split(key)
             if epoch >= 3:
                 t0 = time.time()
             params, opt_state, loss = train_step(
-                params, opt_state, sub, g, node_feats, edge_weights, y,
-                masks, lane_weights)
+                params, opt_state, sub, g, node_feats, edge_weights, y, masks)
             loss = float(loss)
             if epoch >= 3:
                 dur.append(time.time() - t0)
                 print("Training time/epoch {}".format(np.mean(dur)))
             if args.eval and (epoch + 1) % args.eval_steps == 0:
-                scores = np.asarray(forward(params, g, node_feats, edge_weights, lane_weights))
+                scores = np.asarray(forward(params, g, node_feats, edge_weights))
                 labels_np = np.asarray(y)
                 aucs = tuple(
                     mean_multilabel_auc(
-                        scores[np.asarray(getattr(data, f"{k}_mask"))],
-                        labels_np[np.asarray(getattr(data, f"{k}_mask"))],
+                        scores[np.asarray(mask_arrays[k])],
+                        labels_np[np.asarray(mask_arrays[k])],
                     )
                     for k in ("train", "val", "test")
                 )

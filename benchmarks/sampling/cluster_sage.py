@@ -29,15 +29,15 @@ from common import (  # noqa: E402
     Logger,
 )
 
-import dgl_tpu  # noqa: E402
-from dgl_tpu.data.loaders import data_root  # noqa: E402
-from dgl_tpu.models import GAT, GraphSAGE  # noqa: E402
-from dgl_tpu.sampling.cluster import ClusterIter  # noqa: E402
-from dgl_tpu.train import PhaseTimer  # noqa: E402
+import dgl_jax  # noqa: E402
+from dgl_jax.data.loaders import data_root  # noqa: E402
+from dgl_jax.models import GAT, GraphSAGE  # noqa: E402
+from dgl_jax.sampling.cluster import ClusterIter  # noqa: E402
+from dgl_jax.train import PhaseTimer  # noqa: E402
 
 
 def main():
-    p = argparse.ArgumentParser(description="Cluster-GCN style SAGE/GAT (dgl_tpu)")
+    p = argparse.ArgumentParser(description="Cluster-GCN style SAGE/GAT (dgl_jax)")
     p.add_argument("--gpu", type=int, default=0)
     p.add_argument("--dataset", type=str, default="ogbn-products")
     p.add_argument("--model", type=str, default="sage", choices=["sage", "gat"])
@@ -84,10 +84,10 @@ def main():
     # Disk-cached (graph/cache.py) like the node drivers.
     g_full = x_full = y_full = masks = None
     if args.eval or args.save_pred:
-        from dgl_tpu.graph.cache import cached_graph
+        from dgl_jax.graph.cache import cached_graph
 
         g_full, _ = cached_graph(
-            lambda: (dgl_tpu.from_edges(data.src, data.dst, data.num_nodes,
+            lambda: (dgl_jax.from_edges(data.src, data.dst, data.num_nodes,
                                         device=False), {}),
             data_root() if len(data.src) >= 4_000_000 else None,
             f"{args.dataset}_s{args.scale}_sd{args.seed}_b0l0r0"

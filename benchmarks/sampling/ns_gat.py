@@ -26,9 +26,9 @@ from common import (  # noqa: E402
     print_data_stats,
 )
 
-import dgl_tpu  # noqa: E402
-from dgl_tpu.models import GAT  # noqa: E402
-from dgl_tpu.sampling import (  # noqa: E402
+import dgl_jax  # noqa: E402
+from dgl_jax.models import GAT  # noqa: E402
+from dgl_jax.sampling import (  # noqa: E402
     CSRGraph,
     DeviceNeighborSampler,
     MultiLayerNeighborSampler,
@@ -37,7 +37,7 @@ from dgl_tpu.sampling import (  # noqa: E402
 
 
 def main():
-    p = argparse.ArgumentParser(description="Neighbor-sampling GAT (dgl_tpu)")
+    p = argparse.ArgumentParser(description="Neighbor-sampling GAT (dgl_jax)")
     p.add_argument("--gpu", type=int, default=0)
     p.add_argument("--dataset", type=str, default="reddit",
                    choices=["reddit", "ogbn-products", "ogbn-arxiv", "cora", "pubmed"])
@@ -76,7 +76,7 @@ def main():
         raise ValueError("--fan-out length must equal --num-layers")
 
     csr = CSRGraph.from_edges(data.src, data.dst, data.num_nodes)
-    g_full = dgl_tpu.from_edges(data.src, data.dst, data.num_nodes)
+    g_full = dgl_jax.from_edges(data.src, data.dst, data.num_nodes)
     x = jnp.asarray(data.features)
     y = jnp.asarray(data.labels)
     train_nid = np.where(data.train_mask)[0]
@@ -171,7 +171,7 @@ def main():
 
     key = jax.random.PRNGKey(args.seed)
     avg = 0.0
-    iter_tput = []
+    iter_throughput = []
     for epoch in range(args.num_epochs):
         tic = time.time()
         tic_step = time.time()
@@ -190,11 +190,11 @@ def main():
                 x, y)
             loss_v, acc_v = float(loss), float(acc)
             toc = time.time()
-            tput = len(idx) / (toc - tic)
+            throughput = len(idx) / (toc - tic)
             print(
                 "Epoch {:05d} | Step {:05d} | Loss {:.4f} | Train Acc {:.4f} | "
                 "Speed (samples/sec) {:.4f} | GPU {:.1f} MiB".format(
-                    epoch, n_steps - 1, loss_v, acc_v, tput, device_mem_mib()))
+                    epoch, n_steps - 1, loss_v, acc_v, throughput, device_mem_mib()))
             print("Epoch Time(s): {:.4f}".format(toc - tic))
             if epoch >= 5:
                 avg += toc - tic
@@ -208,14 +208,14 @@ def main():
             params, opt, loss, acc = train_step(
                 params, opt, sub, mb.blocks, mb.input_nodes, mb.seeds, mb.seed_mask, x, y
             )
-            iter_tput.append(args.batch_size / (time.time() - tic_step))
+            iter_throughput.append(args.batch_size / (time.time() - tic_step))
             if step % args.log_every == 0:
                 # the ONLY per-step device sync is this logging readback
                 print(
                     "Epoch {:05d} | Step {:05d} | Loss {:.4f} | Train Acc {:.4f} | "
                     "Speed (samples/sec) {:.4f} | GPU {:.1f} MiB".format(
-                        epoch, step, float(loss), float(acc), float(np.mean(iter_tput[3:]))
-                        if len(iter_tput) > 3 else 0.0, device_mem_mib(),
+                        epoch, step, float(loss), float(acc), float(np.mean(iter_throughput[3:]))
+                        if len(iter_throughput) > 3 else 0.0, device_mem_mib(),
                     )
                 )
             tic_step = time.time()

@@ -10,8 +10,8 @@ inference (our full-graph kernels make the reference's batched ping-pong
 ``inference`` loop (``:50-90``) unnecessary — one full-graph forward per
 layer is the same computation without host round-trips).
 
-TPU-native pipeline: host numpy sampler (static-shape blocks, see
-``dgl_tpu/sampling/neighbor.py``) in a prefetch thread; features stay
+Pipeline: host numpy sampler (static-shape blocks, see
+``dgl_jax/sampling/neighbor.py``) in a prefetch thread; features stay
 device-resident and are row-gathered on device per step.
 """
 
@@ -33,9 +33,9 @@ from common import (  # noqa: E402
     print_data_stats,
 )
 
-import dgl_tpu  # noqa: E402
-from dgl_tpu.models import GraphSAGE  # noqa: E402
-from dgl_tpu.sampling import (  # noqa: E402
+import dgl_jax  # noqa: E402
+from dgl_jax.models import GraphSAGE  # noqa: E402
+from dgl_jax.sampling import (  # noqa: E402
     CSRGraph,
     DeviceNeighborSampler,
     MultiLayerNeighborSampler,
@@ -44,7 +44,7 @@ from dgl_tpu.sampling import (  # noqa: E402
 
 
 def main():
-    p = argparse.ArgumentParser(description="Neighbor-sampling SAGE (dgl_tpu)")
+    p = argparse.ArgumentParser(description="Neighbor-sampling SAGE (dgl_jax)")
     p.add_argument("--gpu", type=int, default=0)
     p.add_argument("--dataset", type=str, default="reddit",
                    choices=["reddit", "ogbn-products", "ogbn-arxiv", "cora", "pubmed"])
@@ -93,12 +93,12 @@ def main():
     if args.inductive:
         # train-time graph = node-induced subgraph on train nodes, with ids
         # kept GLOBAL so features/labels index unchanged
-        from dgl_tpu.graph.transforms import node_subgraph
+        from dgl_jax.graph.transforms import node_subgraph
         keep = np.zeros(data.num_nodes, bool); keep[train_nid] = True
         m = keep[data.src] & keep[data.dst]
         src_tr, dst_tr = data.src[m], data.dst[m]
     csr = CSRGraph.from_edges(src_tr, dst_tr, data.num_nodes)
-    g_full = dgl_tpu.from_edges(data.src, data.dst, data.num_nodes)
+    g_full = dgl_jax.from_edges(data.src, data.dst, data.num_nodes)
     x = jnp.asarray(data.features)
     y = jnp.asarray(data.labels)
 
@@ -154,7 +154,7 @@ def main():
     # --scan-steps: one dispatch per epoch — on-device sampling AND training
     # scanned over a (n_steps, b_pad) seed matrix (the only per-epoch H2D).
     # Same math as the step loop: sequential optimizer updates, fresh
-    # per-step sample/dropout keys. Removes ~2 dispatches/step of tunnel
+    # per-step sample/dropout keys. Removes ~2 dispatches/step of host
     # latency (~190 steps/epoch on reddit).
     if not args.host_sampler:
         skel = dsampler.skeleton_blocks(args.batch_size)
@@ -193,7 +193,7 @@ def main():
 
     key = jax.random.PRNGKey(args.seed)
     avg = 0.0
-    iter_tput = []
+    iter_throughput = []
     for epoch in range(args.num_epochs):
         tic = time.time()
         tic_step = time.time()
@@ -212,11 +212,11 @@ def main():
                 x, y)
             loss_v, acc_v = float(loss), float(acc)
             toc = time.time()
-            tput = len(idx) / (toc - tic)
+            throughput = len(idx) / (toc - tic)
             print(
                 "Epoch {:05d} | Step {:05d} | Loss {:.4f} | Train Acc {:.4f} | "
                 "Speed (samples/sec) {:.4f} | GPU {:.1f} MiB".format(
-                    epoch, n_steps - 1, loss_v, acc_v, tput, device_mem_mib()))
+                    epoch, n_steps - 1, loss_v, acc_v, throughput, device_mem_mib()))
             print("Epoch Time(s): {:.4f}".format(toc - tic))
             if epoch >= 5:
                 avg += toc - tic
@@ -230,14 +230,14 @@ def main():
             params, opt, loss, acc = train_step(
                 params, opt, sub, mb.blocks, mb.input_nodes, mb.seeds, mb.seed_mask, x, y
             )
-            iter_tput.append(args.batch_size / (time.time() - tic_step))
+            iter_throughput.append(args.batch_size / (time.time() - tic_step))
             if step % args.log_every == 0:
                 # the ONLY per-step device sync is this logging readback
                 print(
                     "Epoch {:05d} | Step {:05d} | Loss {:.4f} | Train Acc {:.4f} | "
                     "Speed (samples/sec) {:.4f} | GPU {:.1f} MiB".format(
-                        epoch, step, float(loss), float(acc), float(np.mean(iter_tput[3:]))
-                        if len(iter_tput) > 3 else 0.0, device_mem_mib(),
+                        epoch, step, float(loss), float(acc), float(np.mean(iter_throughput[3:]))
+                        if len(iter_throughput) > 3 else 0.0, device_mem_mib(),
                     )
                 )
             tic_step = time.time()

@@ -14,7 +14,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run(script, *args, timeout=900):
-    env = dict(os.environ, DGL_TPU_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, script), *args],
         capture_output=True, text=True, timeout=timeout, env=env, cwd=REPO,
@@ -57,23 +57,23 @@ def test_ns_sage_learns():
 
 
 # ---------------------------------------------------------------------------
-# Hardened structure-required gates (VERDICT round 1, item 6).
+# Hardened structure-required gates.
 #
-# DGL_TPU_SYNTH_STRUCTURAL=1 switches the synthetic fallback to a
+# DGL_JAX_SYNTH_STRUCTURAL=1 switches the synthetic fallback to a
 # construction where the label is a function of the IN-NEIGHBOR-MEAN latent
 # and the node's own features are independent of it: a features-only model
 # (or any broken aggregation) scores near chance (1/41 ≈ 2.4% here), while
 # one correct mean-aggregation step makes the label linearly decodable.
-# DGL_TPU_FAULT_ZERO_AGG=1 injects a broken gspmm (zeroed aggregation); the
+# DGL_JAX_FAULT_ZERO_AGG=1 injects a broken gspmm (zeroed aggregation); the
 # same three gates must then FAIL.
 # ---------------------------------------------------------------------------
 
-_STRUCT = {"DGL_TPU_SYNTH_STRUCTURAL": "1"}
-_BROKEN = {"DGL_TPU_SYNTH_STRUCTURAL": "1", "DGL_TPU_FAULT_ZERO_AGG": "1"}
+_STRUCT = {"DGL_JAX_SYNTH_STRUCTURAL": "1"}
+_BROKEN = {"DGL_JAX_SYNTH_STRUCTURAL": "1", "DGL_JAX_FAULT_ZERO_AGG": "1"}
 
 
 def _run_env(extra_env, script, *args, timeout=900):
-    env = dict(os.environ, DGL_TPU_PLATFORM="cpu", **extra_env)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", **extra_env)
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, script), *args],
         capture_output=True, text=True, timeout=timeout, env=env, cwd=REPO,
@@ -117,34 +117,17 @@ def test_structural_gate_ns_sage():
 
 
 def test_structural_numerics_equivalence():
-    """Scan/blocked segment-sum numerics must reach the same final accuracy
-    as the exact scatter reduction over a full training run (VERDICT weak
-    item 4)."""
+    """The blocked prefix-scan segment sum (DGL_JAX_SEGSUM=cumsum) must
+    reach the same final accuracy as the exact scatter reduction over a
+    full training run."""
     args = ("--dataset", "reddit", "--scale", "0.01", "--epochs", "25",
             "--runs", "1", "--eval")
     accs = {}
-    for mode in ("scatter", "scan", "blocked"):
-        env = dict(_STRUCT, DGL_TPU_SEGSUM=mode)
+    for mode in ("scatter", "cumsum"):
+        env = dict(_STRUCT, DGL_JAX_SEGSUM=mode)
         accs[mode] = _final_test(
             _run_env(env, "benchmarks/node_classification/main_sage.py", *args)
         )
     base = accs["scatter"]
     for mode, acc in accs.items():
         assert abs(acc - base) < 3.0, f"{mode} diverged: {accs}"
-
-
-def test_structural_lane_numerics_equivalence():
-    """Lane-kernel numerics (Pallas bf16 gather/MXU-scatter + XLA hybrid
-    remainder, via interpret mode off-TPU) must reach the same final
-    accuracy as the exact XLA path over a full training run (VERDICT
-    round 1, weak item 4 — the lane half)."""
-    args = ("--dataset", "reddit", "--scale", "0.005", "--epochs", "10",
-            "--runs", "1", "--eval", "--no-precompute")
-    base = _final_test(_run_env(
-        _STRUCT, "benchmarks/node_classification/main_sage.py", *args))
-    lane = _final_test(_run_env(
-        dict(_STRUCT, DGL_TPU_LANE_INTERPRET="1"),
-        "benchmarks/node_classification/main_sage.py", *args, "--lane-kernel"))
-    # --lane-kernel also locality-relabels the graph (different init/data
-    # order), so this is a statistical band, not exactness
-    assert abs(lane - base) < 6.0, (lane, base)

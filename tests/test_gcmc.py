@@ -5,18 +5,18 @@ import pytest
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+from dgl_jax.nn import linen as nn
 
-from dgl_tpu import from_edges
-from dgl_tpu.graph.hetero import HeteroGraph
-from dgl_tpu.nn import (
+from dgl_jax import from_edges
+from dgl_jax.graph.hetero import HeteroGraph
+from dgl_jax.nn import (
     BiDecoder,
     DenseBiDecoder,
     GCMCGraphConv,
     HeteroGraphConv,
     SAGEConv,
 )
-from dgl_tpu.data.movielens import load_movielens
+from dgl_jax.data.movielens import load_movielens
 
 
 def test_gcmc_graph_conv_math(rng):
@@ -112,8 +112,8 @@ def test_movielens_pipeline():
 
 def test_gcmc_layer_share_param(rng):
     """share_user_item_param must build one W_r per rating (regression:
-    duplicate param creation crashed flax)."""
-    from dgl_tpu.nn import GCMCLayer
+    duplicate param creation crashed the module layer)."""
+    from dgl_jax.nn import GCMCLayer
 
     n_u, n_m = 6, 5
     rels = {}

@@ -1,12 +1,12 @@
-"""Graph disk-cache round trip (dgl_tpu/graph/cache.py): cached prep must
+"""Graph disk-cache round trip (dgl_jax/graph/cache.py): cached prep must
 reproduce the exact canonical arrays — the suite's big rows (products/
 cluster) depend on it to amortize ~5 min of host prep per subprocess."""
 
 import numpy as np
 import pytest
 
-import dgl_tpu
-from dgl_tpu.graph.cache import cached_graph, load_graph, save_graph
+import dgl_jax
+from dgl_jax.graph.cache import cached_graph, load_graph, save_graph
 
 
 @pytest.fixture
@@ -14,7 +14,7 @@ def g_np(rng):
     n, e = 300, 4000
     src = rng.integers(0, n, e)
     dst = rng.integers(0, n, e)
-    return dgl_tpu.from_edges(src, dst, n, device=False)
+    return dgl_jax.from_edges(src, dst, n, device=False)
 
 
 def _assert_graph_equal(a, b):
@@ -23,7 +23,7 @@ def _assert_graph_equal(a, b):
             np.asarray(getattr(a, name)), np.asarray(getattr(b, name)), err_msg=name)
     assert (a.num_src_nodes, a.num_dst_nodes, a.num_edges) == (
         b.num_src_nodes, b.num_dst_nodes, b.num_edges)
-    for name in ("segblocks", "mxublocks"):
+    for name in ("segblocks",):
         ta, tb = getattr(a, name), getattr(b, name)
         assert (ta is None) == (tb is None)
         if ta is not None:
@@ -75,15 +75,15 @@ def test_cached_graph_numerics_identical(tmp_path, rng):
     the freshly built graph (the cache stores every reduction-plan array)."""
     import jax.numpy as jnp
 
-    from dgl_tpu.ops import gspmm
+    from dgl_jax.ops import gspmm
 
     n, e = 200, 3000
     src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
 
     def build():
-        return dgl_tpu.from_edges(src, dst, n, device=False), {}
+        return dgl_jax.from_edges(src, dst, n, device=False), {}
 
-    g_fresh = dgl_tpu.from_edges(src, dst, n)
+    g_fresh = dgl_jax.from_edges(src, dst, n)
     g_cached, _ = cached_graph(build, str(tmp_path), "num")
     g_cached, _ = cached_graph(build, str(tmp_path), "num")  # from disk
     x = jnp.asarray(rng.standard_normal((n, 16)).astype(np.float32))

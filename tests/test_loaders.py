@@ -1,7 +1,7 @@
 """Fixture-file round-trip tests for the real-format dataset parsers.
 
 The environment has no network egress, so the parsers in
-``dgl_tpu/data/loaders.py`` / ``movielens.py`` can't be exercised on the
+``dgl_jax/data/loaders.py`` / ``movielens.py`` can't be exercised on the
 actual downloads. These tests synthesize tiny on-disk fixtures in the EXACT
 public layouts — Planetoid pickles, DGL ``reddit_*.npz``, OGB ``csv.gz``,
 canonical npz, MovieLens ``u.data``/``u.user``/``u.item`` — and assert the
@@ -16,12 +16,12 @@ import pickle
 import numpy as np
 import pytest
 
-from dgl_tpu.data.loaders import load_node_dataset
+from dgl_jax.data.loaders import load_node_dataset
 
 
 @pytest.fixture
 def data_dir(tmp_path, monkeypatch):
-    monkeypatch.setenv("DGL_TPU_DATA_DIR", str(tmp_path))
+    monkeypatch.setenv("DGL_JAX_DATA_DIR", str(tmp_path))
     return str(tmp_path)
 
 
@@ -175,7 +175,7 @@ def test_movielens_fixture(data_dir, rng):
     """MovieLens ml-100k layout: tab-separated ``u.data`` ratings plus
     ``u.user`` demographics and ``u.item`` title/genre features
     (``gcmc_dgl/data.py:109-209,415-537`` semantics)."""
-    from dgl_tpu.data.movielens import load_movielens
+    from dgl_jax.data.movielens import load_movielens
 
     root = os.path.join(data_dir, "ml-100k")
     os.makedirs(root)
@@ -229,7 +229,7 @@ def test_movielens_fixture(data_dir, rng):
 def test_tu_fixture(data_dir, rng):
     """TU text layout (ENZYMES_A.txt etc., 1-based ids) -> per-graph
     structures with graph-local edges and continuous node attributes."""
-    from dgl_tpu.data.loaders import load_graph_dataset
+    from dgl_jax.data.loaders import load_graph_dataset
 
     d = os.path.join(data_dir, "ENZYMES")
     os.makedirs(d)
@@ -261,7 +261,7 @@ def test_tu_fixture(data_dir, rng):
 def test_ogb_graph_fixture(data_dir, rng):
     """OGB graph-prop csv.gz layout -> graphs, int mol features, scaffold
     split indices."""
-    from dgl_tpu.data.loaders import load_graph_dataset
+    from dgl_jax.data.loaders import load_graph_dataset
 
     d = os.path.join(data_dir, "ogbg_molhiv")
     raw = os.path.join(d, "raw")
@@ -306,7 +306,7 @@ def test_convert_tool_roundtrip(data_dir, rng, monkeypatch):
     import importlib
     import sys as _sys
 
-    from dgl_tpu.data.loaders import load_graph_dataset
+    from dgl_jax.data.loaders import load_graph_dataset
 
     d = os.path.join(data_dir, "ENZYMES")
     os.makedirs(d)

@@ -17,17 +17,17 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 import jax
 jax.config.update("jax_platforms", "cpu")
-sys.path.insert(0, os.environ["DGL_TPU_REPO"])
+sys.path.insert(0, os.environ["DGL_JAX_REPO"])
 
-from dgl_tpu.parallel.multihost import initialize, global_mesh
-initialize()  # from DGL_TPU_* env vars
+from dgl_jax.parallel.multihost import initialize, global_mesh
+initialize()  # from DGL_JAX_* env vars
 
 import numpy as np
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
-import dgl_tpu
-from dgl_tpu.ops import gspmm
-from dgl_tpu.parallel import shard_graph
+import dgl_jax
+from dgl_jax.ops import gspmm
+from dgl_jax.parallel import shard_graph
 
 assert jax.process_count() == 2, jax.process_count()
 assert jax.device_count() == 4  # 2 procs x 2 virtual cpu devices
@@ -39,7 +39,7 @@ rng = np.random.default_rng(0)
 n, e, d = 64, 256, 8
 src = rng.integers(0, n, e)
 dst = rng.integers(0, n, e)
-g = dgl_tpu.from_edges(src, dst, n, e_pad=256)
+g = dgl_jax.from_edges(src, dst, n, e_pad=256)
 x_np = rng.standard_normal((n, d)).astype(np.float32)
 
 # single-process reference computed identically on both hosts
@@ -47,7 +47,7 @@ ref = np.asarray(gspmm(g, "copy_u", "mean", x=jnp.asarray(x_np)))
 
 # shard edges across all 4 devices (data x graph flattened via 2 axes)
 from jax.sharding import PartitionSpec
-from dgl_tpu.parallel.spmd import graph_sharding
+from dgl_jax.parallel.spmd import graph_sharding
 gs = graph_sharding(g, mesh, "graph")
 # host-local construction of globally-sharded arrays
 from jax import make_array_from_callback
@@ -64,7 +64,7 @@ print(f"proc {jax.process_index()}: multihost spmm OK", flush=True)
 """
 
 
-@pytest.mark.skipif(os.environ.get("DGL_TPU_SKIP_MULTIHOST") == "1",
+@pytest.mark.skipif(os.environ.get("DGL_JAX_SKIP_MULTIHOST") == "1",
                     reason="multihost disabled")
 def test_two_process_cluster(tmp_path):
     with socket.socket() as s:
@@ -76,10 +76,10 @@ def test_two_process_cluster(tmp_path):
     for pid in range(2):
         env = dict(
             os.environ,
-            DGL_TPU_REPO=REPO,
-            DGL_TPU_COORDINATOR=f"127.0.0.1:{port}",
-            DGL_TPU_NUM_PROCESSES="2",
-            DGL_TPU_PROCESS_ID=str(pid),
+            DGL_JAX_REPO=REPO,
+            DGL_JAX_COORDINATOR=f"127.0.0.1:{port}",
+            DGL_JAX_NUM_PROCESSES="2",
+            DGL_JAX_PROCESS_ID=str(pid),
         )
         procs.append(subprocess.Popen(
             [sys.executable, str(script)], env=env,

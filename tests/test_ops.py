@@ -12,8 +12,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from dgl_tpu import from_edges
-from dgl_tpu.ops import gspmm, gsddmm, edge_softmax
+from dgl_jax import from_edges
+from dgl_jax.ops import gspmm, gsddmm, edge_softmax
 
 from utils import dense_spmm, dense_sddmm, dense_edge_softmax
 
@@ -164,7 +164,7 @@ def test_edge_softmax_matches_dense(rng):
 def test_edge_softmax_loose_bound_rescued(rng):
     """A dst_bound pathologically far above the true max (> f32's ~88 exp
     range) used to underflow every exp for the row and return all-zero
-    attention via the tiny-clamp (ADVICE r4); the guard must detect the
+    attention via the tiny-clamp; the guard must detect the
     zeroed denominator and rescue with the exact segment-max path."""
     n, n_e = 12, 40
     src = rng.integers(0, n, size=n_e)
@@ -249,8 +249,8 @@ def test_spmm_jit_and_vmap_compatible(rng):
 def test_gather_dst_scan_path(rng, monkeypatch):
     """Force the scan-based dst gather and compare against plain take,
     including zero-degree nodes and an exactly-full edge array."""
-    monkeypatch.setenv("DGL_TPU_SEGSUM", "cumsum")
-    from dgl_tpu.ops.gather import gather_dst
+    monkeypatch.setenv("DGL_JAX_SEGSUM", "cumsum")
+    from dgl_jax.ops.gather import gather_dst
 
     n = 20
     # include zero-degree nodes (no in-edges for nodes 15..19)
@@ -276,9 +276,9 @@ def test_edge_softmax_scan_path_matches(rng, monkeypatch):
     dst = rng.integers(0, n, n_e)
     g = from_edges(src, dst, n)
     logits = jnp.asarray(rng.standard_normal((g.num_edges_padded, 2)).astype(np.float32))
-    monkeypatch.setenv("DGL_TPU_SEGSUM", "scatter")
+    monkeypatch.setenv("DGL_JAX_SEGSUM", "scatter")
     a_ref = np.asarray(edge_softmax(g, logits))
-    monkeypatch.setenv("DGL_TPU_SEGSUM", "cumsum")
+    monkeypatch.setenv("DGL_JAX_SEGSUM", "cumsum")
     a_scan = np.asarray(edge_softmax(g, logits))
     np.testing.assert_allclose(a_scan[: g.num_edges], a_ref[: g.num_edges],
                                rtol=1e-4, atol=1e-5)
@@ -295,7 +295,7 @@ def test_spmm_feature_chunking_matches(rng, monkeypatch):
     ref = np.asarray(gspmm(g, "copy_u", "mean", x=x))
     ref_g = np.asarray(jax.grad(lambda x: jnp.sum(gspmm(g, "copy_u", "mean", x=x) ** 2))(x))
     # force chunking: budget smaller than E_pad * d * 4
-    monkeypatch.setenv("DGL_TPU_MSG_BUDGET_GB", str(g.num_edges_padded * 4 * 4 / (1 << 30)))
+    monkeypatch.setenv("DGL_JAX_MSG_BUDGET_GB", str(g.num_edges_padded * 4 * 4 / (1 << 30)))
     out = np.asarray(gspmm(g, "copy_u", "mean", x=x))
     gr = np.asarray(jax.grad(lambda x: jnp.sum(gspmm(g, "copy_u", "mean", x=x) ** 2))(x))
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
@@ -305,7 +305,7 @@ def test_spmm_feature_chunking_matches(rng, monkeypatch):
 def test_segment_sum_blocked_accuracy(rng, monkeypatch):
     """Blocked segment sum must match the exact scatter tightly even on
     all-positive data where the plain scan drifts (prefix-magnitude ulp)."""
-    from dgl_tpu.ops.segment import segment_sum_blocked, segment_sum
+    from dgl_jax.ops.segment import segment_sum_blocked, segment_sum
 
     n, n_e, d = 500, 60000, 4
     src = rng.integers(0, n, n_e)
@@ -319,10 +319,10 @@ def test_segment_sum_blocked_accuracy(rng, monkeypatch):
     ref = np.asarray(segment_sum(msg, g.dst, n, sorted=True))
     np.testing.assert_allclose(out, ref, rtol=3e-6, atol=1e-5)
     # and through the gspmm scan gate
-    monkeypatch.setenv("DGL_TPU_SEGSUM", "cumsum")
+    monkeypatch.setenv("DGL_JAX_SEGSUM", "cumsum")
     x = jnp.asarray(np.abs(rng.standard_normal((n, d))).astype(np.float32))
     a = np.asarray(gspmm(g, "copy_u", "sum", x=x))
-    monkeypatch.setenv("DGL_TPU_SEGSUM", "scatter")
+    monkeypatch.setenv("DGL_JAX_SEGSUM", "scatter")
     b = np.asarray(gspmm(g, "copy_u", "sum", x=x))
     np.testing.assert_allclose(a, b, rtol=3e-6, atol=1e-5)
 
@@ -363,7 +363,7 @@ def test_spmm_edge_chunked_matches(rng, reduce, k):
     """_spmm_xe_echunk (bounded-memory binary SpMM) must match the fused
     path bit-for-bit in value and in grads wrt x and e, for any chunk
     count — including chunks that straddle the sentinel-padded tail."""
-    from dgl_tpu.ops.spmm import _spmm_xe, _spmm_xe_echunk
+    from dgl_jax.ops.spmm import _spmm_xe, _spmm_xe_echunk
 
     n_src, n_dst, n_e, d = 29, 23, 150, 6
     g, src, dst = _mk(rng, n_src, n_dst, n_e)
@@ -390,14 +390,14 @@ def test_spmm_edge_chunked_matches(rng, reduce, k):
 def test_spmm_edge_chunk_dispatch(rng, monkeypatch):
     """gspmm auto-dispatches huge binary messages to the edge-chunked path
     (shrunken budget so a tiny graph qualifies) with identical results."""
-    import dgl_tpu.ops.spmm as spmm_mod
+    import dgl_jax.ops.spmm as spmm_mod
 
     n, d = 40, 8
     g, src, dst = _mk(rng, n, n, 300)
     x = jnp.asarray(rng.standard_normal((n, d)).astype(np.float32))
     e = jnp.asarray(rng.standard_normal((g.num_edges_padded, 1)).astype(np.float32))
     ref = np.asarray(gspmm(g, "mul", "mean", x=x, e=e))
-    monkeypatch.setenv("DGL_TPU_MSG_BUDGET_GB", "0.0000004")  # ~430 bytes / 4
+    monkeypatch.setenv("DGL_JAX_MSG_BUDGET_GB", "0.0000004")  # ~430 bytes / 4
     out = np.asarray(gspmm(g, "mul", "mean", x=x, e=e))
     np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
 
@@ -408,7 +408,7 @@ def test_gspmm_rel_matches_loop(rng, reduce, k):
     """gspmm_rel (relation-contracted SpMM) must equal the per-relation
     gspmm loop in value and grads — the RGCN fast-path identity
     Σ_r agg(x·w_r)@W_r == one pass over y_r = x@W_r stacked."""
-    from dgl_tpu.ops.spmm import gspmm_rel
+    from dgl_jax.ops.spmm import gspmm_rel
 
     n_src, n_dst, n_e, R, d = 31, 27, 180, 5, 4
     g, src, dst = _mk(rng, n_src, n_dst, n_e)
@@ -434,7 +434,7 @@ def test_gspmm_rel_matches_loop(rng, reduce, k):
 
 
 def test_scatter_lowering_matches_fused(rng, monkeypatch):
-    """DGL_TPU_LOWERING=scatter (the PyG-twin lowering drivers expose as
+    """DGL_JAX_LOWERING=scatter (the PyG-twin lowering drivers expose as
     --lowering scatter) must agree with the fused custom-VJP path in both
     values and gradients — it is the same math, different cost profile."""
     import os
@@ -442,11 +442,11 @@ def test_scatter_lowering_matches_fused(rng, monkeypatch):
     import jax
     import jax.numpy as jnp
 
-    import dgl_tpu
-    from dgl_tpu.ops import gspmm
+    import dgl_jax
+    from dgl_jax.ops import gspmm
 
     n, e = 120, 900
-    g = dgl_tpu.from_edges(rng.integers(0, n, e), rng.integers(0, n, e), n)
+    g = dgl_jax.from_edges(rng.integers(0, n, e), rng.integers(0, n, e), n)
     x = jnp.asarray(rng.standard_normal((n, 9)).astype(np.float32))
     ed = jnp.asarray(rng.standard_normal((g.num_edges_padded, 9)).astype(np.float32))
 
@@ -460,13 +460,13 @@ def test_scatter_lowering_matches_fused(rng, monkeypatch):
     for op, reduce, use_e in [("copy_u", "sum", False), ("copy_u", "mean", False),
                               ("mul", "sum", True), ("copy_e", "mean", True)]:
         f = run(op, reduce, use_e)
-        monkeypatch.delenv("DGL_TPU_LOWERING", raising=False)
+        monkeypatch.delenv("DGL_JAX_LOWERING", raising=False)
         v0 = f(x, ed)
         gx0, ge0 = jax.grad(f, argnums=(0, 1))(x, ed)
-        monkeypatch.setenv("DGL_TPU_LOWERING", "scatter")
+        monkeypatch.setenv("DGL_JAX_LOWERING", "scatter")
         v1 = f(x, ed)
         gx1, ge1 = jax.grad(f, argnums=(0, 1))(x, ed)
-        monkeypatch.delenv("DGL_TPU_LOWERING")
+        monkeypatch.delenv("DGL_JAX_LOWERING")
         np.testing.assert_allclose(v0, v1, rtol=2e-5, err_msg=f"{op}.{reduce}")
         np.testing.assert_allclose(gx0, gx1, rtol=2e-4, atol=1e-4,
                                    err_msg=f"grad x {op}.{reduce}")
@@ -481,12 +481,12 @@ def test_copyu_edge_chunked_matches_exact(rng, monkeypatch):
     import jax
     import jax.numpy as jnp
 
-    import dgl_tpu
-    from dgl_tpu.ops import gspmm
-    from dgl_tpu.ops.spmm import _spmm_copyu_echunk
+    import dgl_jax
+    from dgl_jax.ops import gspmm
+    from dgl_jax.ops.spmm import _spmm_copyu_echunk
 
     n, e = 150, 1100
-    g = dgl_tpu.from_edges(rng.integers(0, n, e), rng.integers(0, n, e), n)
+    g = dgl_jax.from_edges(rng.integers(0, n, e), rng.integers(0, n, e), n)
     x = jnp.asarray(rng.standard_normal((n, 12)).astype(np.float32))
 
     for reduce in ("sum", "mean"):
@@ -499,8 +499,8 @@ def test_copyu_edge_chunked_matches_exact(rng, monkeypatch):
 
     # dispatch: a tiny budget must route through the edge-chunked path and
     # still match
-    monkeypatch.setenv("DGL_TPU_MSG_BUDGET_GB", "0.00001")
+    monkeypatch.setenv("DGL_JAX_MSG_BUDGET_GB", "0.00001")
     out2 = gspmm(g, "copy_u", "mean", x=x)
-    monkeypatch.delenv("DGL_TPU_MSG_BUDGET_GB")
+    monkeypatch.delenv("DGL_JAX_MSG_BUDGET_GB")
     np.testing.assert_allclose(out2, gspmm(g, "copy_u", "mean", x=x, exact=True),
                                rtol=1e-5, atol=1e-5)

@@ -13,10 +13,10 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-import dgl_tpu
-from dgl_tpu.models import GraphSAGE
-from dgl_tpu.ops import gspmm
-from dgl_tpu.parallel import device_mesh, graph_sharding, replicated, shard_graph
+import dgl_jax
+from dgl_jax.models import GraphSAGE
+from dgl_jax.ops import gspmm
+from dgl_jax.parallel import device_mesh, graph_sharding, replicated, shard_graph
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"
@@ -26,7 +26,7 @@ pytestmark = pytest.mark.skipif(
 def _toy(rng, n=256, e=1024, d=16):
     src = rng.integers(0, n, e)
     dst = rng.integers(0, n, e)
-    g = dgl_tpu.from_edges(src, dst, n, e_pad=1024)
+    g = dgl_jax.from_edges(src, dst, n, e_pad=1024)
     x = jnp.asarray(rng.standard_normal((n, d)).astype(np.float32))
     return g, x
 
@@ -78,13 +78,13 @@ def test_graft_entry_dryrun():
 
 
 def test_halo_spmm_matches_single_device(rng):
-    from dgl_tpu.parallel import halo_spmm, shard_fullgraph, place
-    from dgl_tpu.ops import gspmm
+    from dgl_jax.parallel import halo_spmm, shard_fullgraph, place
+    from dgl_jax.ops import gspmm
 
     n, e, d = 300, 2000, 8
     src = rng.integers(0, n, e)
     dst = rng.integers(0, n, e)
-    g = dgl_tpu.from_edges(src, dst, n)
+    g = dgl_jax.from_edges(src, dst, n)
     x = rng.standard_normal((n, d)).astype(np.float32)
     ref = np.asarray(gspmm(g, "copy_u", "mean", x=jnp.asarray(x)))
 
@@ -105,9 +105,9 @@ def test_dp_minibatch_training(rng):
     """8-way data-parallel sampled minibatch step: grads == mean of
     single-replica grads."""
     import optax
-    from dgl_tpu.models import GraphSAGE
-    from dgl_tpu.parallel import make_dp_train_step, stack_minibatches
-    from dgl_tpu.sampling import CSRGraph, MultiLayerNeighborSampler
+    from dgl_jax.models import GraphSAGE
+    from dgl_jax.parallel import make_dp_train_step, stack_minibatches
+    from dgl_jax.sampling import CSRGraph, MultiLayerNeighborSampler
 
     n, e, d, c = 200, 1500, 8, 4
     src = rng.integers(0, n, e)
@@ -155,17 +155,17 @@ def test_dp_minibatch_training(rng):
 def test_boundary_halo_matches_allgather_halo(rng):
     """Boundary-only all_to_all exchange must equal the all-gather halo and
     the single-device SpMM; exchange volume must actually shrink."""
-    from dgl_tpu.parallel import (
+    from dgl_jax.parallel import (
         halo_spmm, halo_spmm_boundary, place, shard_fullgraph,
         shard_fullgraph_boundary,
     )
-    from dgl_tpu.ops import gspmm
+    from dgl_jax.ops import gspmm
 
     n, e, d = 400, 3000, 8
     # locality-ish graph so boundaries are smaller than everything
     src = np.clip(rng.integers(0, n, e) + rng.integers(-40, 40, e), 0, n - 1)
     dst = rng.integers(0, n, e)
-    g = dgl_tpu.from_edges(src, dst, n)
+    g = dgl_jax.from_edges(src, dst, n)
     x = rng.standard_normal((n, d)).astype(np.float32)
     ref = np.asarray(gspmm(g, "copy_u", "mean", x=jnp.asarray(x)))
 
@@ -189,7 +189,7 @@ def test_halo_sage_matches_dense_oracle(rng):
     the plain fc_self + fc_neigh(mean-agg) math on one device, and a full
     train step must move the loss."""
     import optax
-    from dgl_tpu.parallel import (
+    from dgl_jax.parallel import (
         halo_sage_apply, halo_sage_init, make_halo_train_step,
         shard_fullgraph_boundary,
     )
@@ -211,7 +211,7 @@ def test_halo_sage_matches_dense_oracle(rng):
     out = jax.jit(lambda p, b, xx: halo_sage_apply(p, b, xx, mesh))(params, bs, x_sh)
 
     # dense numpy oracle (mean agg, zero-in-degree rows -> 0 neighbor term)
-    g = dgl_tpu.from_edges(src, dst, n)
+    g = dgl_jax.from_edges(src, dst, n)
     h = x
     for i, layer in enumerate(params):
         agg = np.asarray(gspmm(g, "copy_u", "mean", x=jnp.asarray(h)))
@@ -240,7 +240,7 @@ def test_halo_gat_matches_dense_oracle(rng):
     """Sharded GAT attention (boundary exchange + bound-shift softmax over
     local+halo edges) must match the single-device edge-softmax math, and
     gradients must flow through the all_to_all transpose."""
-    from dgl_tpu.parallel import (
+    from dgl_jax.parallel import (
         halo_gat_apply, halo_gat_boundary, halo_gat_init,
         shard_fullgraph_boundary,
     )
@@ -302,8 +302,8 @@ def test_halo_rgcn_matches_gspmm_rel(rng):
     """Sharded relation-contracted SpMM (halo_rgcn_boundary) must equal the
     single-device gspmm_rel on the same graph + weights, and the full
     sharded RGCN forward must run with finite grads."""
-    from dgl_tpu.ops.spmm import gspmm_rel
-    from dgl_tpu.parallel import (
+    from dgl_jax.ops.spmm import gspmm_rel
+    from dgl_jax.parallel import (
         halo_rgcn_apply, halo_rgcn_boundary, halo_rgcn_init,
         plan_layout_edata_boundary, shard_fullgraph_boundary,
     )
@@ -314,7 +314,7 @@ def test_halo_rgcn_matches_gspmm_rel(rng):
     w = rng.random((e, R)).astype(np.float32)
     y = rng.standard_normal((n, R, D)).astype(np.float32)
 
-    g = dgl_tpu.from_edges(src, dst, n)
+    g = dgl_jax.from_edges(src, dst, n)
     ref = np.asarray(gspmm_rel("mean", 2, g, jnp.asarray(y),
                                g.permute_edata(jnp.asarray(w))))
 

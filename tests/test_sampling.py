@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from dgl_tpu.graph.partition import get_partition_list, partition_assignment
-from dgl_tpu.ops import gspmm
-from dgl_tpu.sampling import (
+from dgl_jax.graph.partition import get_partition_list, partition_assignment
+from dgl_jax.ops import gspmm
+from dgl_jax.sampling import (
     ClusterIter,
     CSRGraph,
     GraphBatchLoader,
@@ -58,7 +58,7 @@ def test_sample_neighbors_noreplace(rng, use_native, monkeypatch):
     deg>=fanout seeds get fanout DISTINCT in-neighbors; deg<fanout seeds get
     ALL their distinct neighbors (cyclically filled); zero-degree seeds get
     themselves. Native and NumPy fallback both satisfy the contract."""
-    from dgl_tpu.csrc import native
+    from dgl_jax.csrc import native
 
     if use_native and not native.available():
         pytest.skip("native lib unavailable")
@@ -279,7 +279,7 @@ def test_device_sampler_matches_host_structure(rng):
     seeds in the first B slots, (b) only reference true in-neighbors of
     their dst (or the dst itself for zero-in-degree nodes)."""
     import jax
-    from dgl_tpu.sampling import CSRGraph, DeviceNeighborSampler, MultiLayerNeighborSampler
+    from dgl_jax.sampling import CSRGraph, DeviceNeighborSampler, MultiLayerNeighborSampler
 
     n, ne = 200, 900
     src = rng.integers(0, n, ne)
@@ -339,7 +339,7 @@ def test_graph_batch_loader_device_cache(rng):
         graphs.append((rng.integers(0, n, e), rng.integers(0, n, e), n))
         feats.append(rng.standard_normal((n, 4)).astype(np.float32))
         labels.append(int(rng.integers(0, 2)))
-    from dgl_tpu.sampling.dataloader import GraphBatchLoader
+    from dgl_jax.sampling.dataloader import GraphBatchLoader
 
     ldr = GraphBatchLoader(graphs, feats, np.asarray(labels), 4, shuffle=True, seed=1)
     ep1 = list(ldr)
@@ -357,7 +357,7 @@ def test_graph_batch_loader_device_cache(rng):
 
 def test_graph_batch_loader_stack_repads_pieces(rng):
     """stacked_cache() must stack every leaf even though the data-dependent
-    segblocks/mxublocks piece arrays land in different half-octave buckets
+    segblocks piece arrays land in different half-octave buckets
     across batches (small final batch) — the sentinel repad makes them
     uniform WITHOUT changing any result (padding pieces are inert)."""
     import jax
@@ -369,7 +369,7 @@ def test_graph_batch_loader_stack_repads_pieces(rng):
         graphs.append((rng.integers(0, n, e), rng.integers(0, n, e), n))
         feats.append(rng.standard_normal((n, 4)).astype(np.float32))
         labels.append(int(rng.integers(0, 2)))
-    from dgl_tpu.sampling.dataloader import GraphBatchLoader
+    from dgl_jax.sampling.dataloader import GraphBatchLoader
 
     ldr = GraphBatchLoader(graphs, feats, np.asarray(labels), 4, shuffle=True, seed=3)
     items = list(ldr)
@@ -382,7 +382,7 @@ def test_graph_batch_loader_stack_repads_pieces(rng):
     # every stacked batch computes exactly what its loose item computed —
     # including batches whose piece arrays were sentinel-extended, and
     # through the gradient path (reverse-graph pieces repadded too)
-    from dgl_tpu.ops import gspmm
+    from dgl_jax.ops import gspmm
 
     for i in range(n_steps):
         b_i, nf_i, _, _ = items[i]

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""Convert public dataset artifacts into dgl_tpu's canonical npz formats.
+"""Convert public dataset artifacts into dgl_jax's canonical npz formats.
 
-The benchmark drivers search ``$DGL_TPU_DATA_DIR`` (default
-``<repo>/.data_cache``) in this order (``dgl_tpu/data/loaders.py``):
+The benchmark drivers search ``$DGL_JAX_DATA_DIR`` (default
+``<repo>/.data_cache``) in this order (``dgl_jax/data/loaders.py``):
 
   1. canonical npz  — ``<name>.npz`` (node tasks) / ``<name>_graphs.npz``
      (graph tasks): the interchange format this tool writes
@@ -54,7 +54,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from dgl_tpu.data.loaders import (  # noqa: E402
+from dgl_jax.data.loaders import (  # noqa: E402
     data_root,
     load_graph_dataset,
     load_node_dataset,
@@ -185,7 +185,7 @@ def main():
     ap.add_argument("kind", choices=("node", "graph"))
     ap.add_argument("name", help=f"node: {NODE_DATASETS}; graph: {GRAPH_DATASETS}")
     ap.add_argument("--root", default=None,
-                    help="data root (default $DGL_TPU_DATA_DIR or .data_cache)")
+                    help="data root (default $DGL_JAX_DATA_DIR or .data_cache)")
     ap.add_argument("--via", choices=("raw", "ogb", "dgl"), default="raw",
                     help="source: 'raw' = parse on-disk public formats with "
                          "our loaders; 'ogb'/'dgl' = export through those "
